@@ -1,11 +1,11 @@
-"""cora-tpu: TPU-native simulation framework for low-frequency radio skies.
+"""cora-tpu: JAX simulation framework for low-frequency radio skies.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 `radiocosmology/cora` (21cm intensity-mapping sky synthesis): angular power
 spectra C_l(nu, nu') from cosmological models, correlated Gaussian a_lm
 realisations, native spherical-harmonic transforms on HEALPix grids,
 foreground models, and a large-scale-structure pipeline — designed for
-single-chip and pod-scale TPU execution via jax.sharding.
+single-device and multi-device execution via jax.sharding.
 
 Layout
 ------

@@ -4,7 +4,7 @@ API-compatible re-design of the reference ``cora/core/maps.py``: the
 ``Map2d``/``Map3d``/``Sky3d`` classes carry angular-patch and frequency-band
 geometry and the ``getsky``/``getpolsky``/``getalms`` template methods.
 
-The synthesis itself (``Sky3d.getsky``) is delegated to the TPU-native
+The synthesis itself (``Sky3d.getsky``) is delegated to the device
 engine in :mod:`cora_tpu.core.skysim`; models opt into the fast on-device
 channel-window integration via ``channel_integration`` (default keeps the
 reference's Romberg-oversampling semantics).

@@ -2,7 +2,7 @@
 
 This subpackage replaces the reference's dependency on healpy (C++
 healpix_cxx + libsharp; see reference cora/util/hputil.py) with a fully
-TPU-native implementation: pixel geometry as vectorised index arithmetic,
+JAX implementation: pixel geometry as vectorised index arithmetic,
 and the SHT as associated-Legendre recurrences + batched ring FFTs
 expressed in JAX/XLA.
 """

@@ -1,11 +1,12 @@
 """Native (C++/OpenMP) host runtime library with ctypes bindings.
 
-Builds ``pixelops.cpp`` into a shared library on first use (g++, cached
-next to the source); every entry point has a numpy fallback so the package
-works without a compiler.  This fills the role of the reference's native
-layer (Cython/C + OpenMP, cora/util/pmesh.pyx + pmesh_util.c) for the
-*host* side of the runtime: layout conversion for device ring-grid maps,
-catalogue painting and bulk pixel math around the JAX compute path.
+Builds ``pixelops.cpp`` into ``build/_pixelops.so`` on first use (g++;
+the build directory is listed in .gitignore); every entry point has a
+numpy fallback so the package works without a compiler.  This fills the
+role of the reference's native layer (Cython/C + OpenMP,
+cora/util/pmesh.pyx + pmesh_util.c) for the *host* side of the runtime:
+layout conversion for device ring-grid maps, catalogue painting and bulk
+pixel math around the JAX compute path.
 """
 
 from __future__ import annotations
@@ -14,31 +15,35 @@ import ctypes
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
 _HERE = os.path.dirname(__file__)
 _SRC = os.path.join(_HERE, "pixelops.cpp")
-_LIB_PATH = os.path.join(_HERE, "_pixelops.so")
+_LIB_PATH = os.path.join(_HERE, "build", "_pixelops.so")
 
 _lib = None
 _tried = False
 
 
 def _build():
-    cmd = [
-        "g++",
-        "-O3",
-        "-march=native",
-        "-fno-math-errno",
-        "-fopenmp",
-        "-shared",
-        "-fPIC",
-        _SRC,
-        "-o",
-        _LIB_PATH,
-    ]
-    subprocess.run(cmd, check=True, capture_output=True)
+    """Compile to a temporary file and rename it into place, so processes
+    that build at the same time never load a half-written library.
+    Generic x86-64 code: the checkout may move between machines."""
+    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(_LIB_PATH))
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-fno-math-errno", "-fopenmp", "-shared", "-fPIC",
+             _SRC, "-o", tmp],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib():

@@ -1,6 +1,6 @@
 // Native host-side pixel/data-path operations for cora-tpu.
 //
-// The TPU compute path is JAX/XLA; this library covers the *host* runtime
+// The device compute path is JAX/XLA; this library covers the *host* runtime
 // hot paths around it (the role the reference fills with Cython/C + OpenMP,
 // cora/util/{pmesh.pyx,pmesh_util.c}):
 //   - HEALPix RING ang2pix / pix2ang (vectorised, OpenMP)

@@ -1,1 +1,1 @@
-"""TPU-native compute kernels: matmul FFTs, scatter ops, pallas kernels."""
+"""Device compute building blocks: matmul FFTs and scatter/deposit ops."""

@@ -1,6 +1,6 @@
 """Sharded checkpoint IO (orbax/tensorstore).
 
-TPU-native equivalent of the reference's parallel-HDF5 distributed
+JAX equivalent of the reference's parallel-HDF5 distributed
 container IO (reference cora/core/containers.py:90-115 — caput memh5
 files flagged ``__memh5_distributed_file``, written collectively over
 MPI).  Here the at-scale persistence path is an orbax/tensorstore

@@ -1,4 +1,4 @@
-"""Multi-host (pod-scale) initialisation and mesh construction.
+"""Multi-host (multi-host) initialisation and mesh construction.
 
 The reference scales with MPI ranks (mpirun); here multi-host runs use
 ``jax.distributed`` — one process per host, devices glued into one global
@@ -6,7 +6,7 @@ mesh. The synthesis axes map as:
 
 * frequency → the outermost mesh axis (collective-free in the streamed
   path — safe to place on DCN between hosts),
-* ℓ/ring-band sharding (for Λ tables beyond one chip's HBM) → inner ICI
+* ℓ/ring-band sharding (for Λ tables beyond one chip's HBM) → inner interconnect
   axis.
 """
 
@@ -50,7 +50,7 @@ def make_pod_mesh(freq_hosts=None, axis_names=("freq", "band")):
     processes (one frequency shard per host — the streamed synthesis needs
     no communication along this axis, so it rides DCN for free). The
     remaining devices per frequency shard form the inner axis for
-    ring-band/ℓ sharding over ICI.
+    ring-band/ℓ sharding over the interconnect.
     """
     devices = np.asarray(jax.devices())
     n = devices.size

@@ -9,7 +9,7 @@ phase-wise axis sharding with global transposes:
 
 Here the whole thing is ONE pjit program over a 1-D mesh: the ell-sharded
 eigh/draw and the freq-sharded SHT are connected by a
-``with_sharding_constraint`` — XLA emits the ell→freq all-to-all over ICI.
+``with_sharding_constraint`` — XLA emits the ell→freq all-to-all over the interconnect.
 """
 
 from __future__ import annotations
@@ -18,26 +18,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-
-def shard_map_compat(f, **kw):
-    """``jax.shard_map`` across the jax 0.8 API move.
-
-    jax >= 0.8 renamed the replication check argument (check_rep →
-    check_vma) and moved shard_map out of experimental; older versions
-    keep the experimental module.  All callers here pass ``check_rep``.
-    """
-    try:
-        from jax import shard_map as _shard_map
-
-        rep = kw.pop("check_rep", None)
-        if rep is not None:
-            kw["check_vma"] = rep
-        return _shard_map(f, **kw)
-    except ImportError:  # pragma: no cover - older jax
-        from jax.experimental.shard_map import shard_map as _shard_map
-
-        return _shard_map(f, **kw)
 
 
 def make_mesh(n_devices=None, axis_name="freq", devices=None):
@@ -58,7 +38,7 @@ def shard_over(x, mesh, axis=0, mesh_axis="freq"):
 
 def redistribute(x, mesh, axis, mesh_axis="freq"):
     """Change the sharded dimension of an array (MPIArray.redistribute
-    equivalent).  Inside jit this lowers to an all-to-all over ICI."""
+    equivalent).  Inside jit this lowers to an all-to-all over the interconnect."""
     spec = [None] * x.ndim
     spec[axis] = mesh_axis
     return jax.lax.with_sharding_constraint(x, NamedSharding(mesh, P(*spec)))
@@ -93,19 +73,22 @@ def mkfullsky_sharded(corr, nside, lmax, key, mesh, dtype=jnp.complex64):
     freq_sharding = NamedSharding(mesh, P("freq", None, None))
     out_sharding = NamedSharding(mesh, P("freq", None, None))
 
+    # the SHT tables are jit arguments, not closure constants: at nside
+    # 256 the Λ chunks are ~0.4 GB, and as constants they are compiled
+    # into the executable (minutes of compile per mesh)
     @jax.jit
-    def _run(corr, key):
+    def _run(corr, key, tables):
         # Phase 1: ell-sharded factorisation + draw
         corr = jax.lax.with_sharding_constraint(corr, ell_sharding)
         alm = draw_correlated_alm(corr, key, dtype=dtype)  # [nz, L, M]
-        # Phase boundary: redistribute ell->freq (all-to-all over ICI)
+        # Phase boundary: redistribute ell->freq (all-to-all over the interconnect)
         alm = jax.lax.with_sharding_constraint(alm, freq_sharding)
         # Phase 2: freq-sharded batched SHT (dense ring-grid layout)
         sky = _synthesis_grid(op, tables, alm)
         return jax.lax.with_sharding_constraint(sky, out_sharding)
 
     with mesh:
-        return _run(jnp.asarray(corr), key)
+        return _run(jnp.asarray(corr), key, tables)
 
 
 def synthesize_cube_sharded(
@@ -134,7 +117,7 @@ def synthesize_cube_sharded(
     """
     from functools import partial
 
-    shard_map = shard_map_compat
+    shard_map = jax.shard_map
     from ..healpix.sht import synthesis_scan_correlated
 
     n_dev = mesh.shape[mesh_axis]
@@ -146,23 +129,26 @@ def synthesize_cube_sharded(
 
     spec_r = P(None, mesh_axis, None)  # roots sharded over the z-row axis
     spec_o = P(mesh_axis, None, None)
+    # replicated tables, shipped as arguments (as closure constants they
+    # would be compiled into the executable); a spec per leaf
+    t_specs = jax.tree.map(lambda v: P(*([None] * jnp.ndim(v))), tables)
 
     @partial(
         shard_map,
         mesh=mesh,
-        in_specs=(spec_r, P()),
+        in_specs=(t_specs, spec_r, P()),
         out_specs=spec_o,
-        check_rep=False,
+        check_vma=False,
     )
-    def _local(roots_rows, key):
+    def _local(t_loc, roots_rows, key):
         # roots_rows: [L, nloc, nz] — this device's output frequencies.
         # Two-level scan: Legendre stage over all local frequencies (full
-        # MXU row tiles, one-shot RNG), ring stage at fchunk.
+        # matmul rows, one-shot RNG), ring stage at fchunk.
         nring = 4 * op.nside - 1
-        nq = tables["bl_C"].shape[-1]
+        nq = t_loc["bl_C"].shape[-1]
         out = jnp.zeros((nloc, nring, nq), jnp.float32)
         return synthesis_scan_correlated(
-            op, tables, roots_rows, key, nloc, fchunk,
+            op, t_loc, roots_rows, key, nloc, fchunk,
             lambda g, z, acc: jax.lax.dynamic_update_slice_in_dim(
                 acc, g, z, axis=0
             ),
@@ -170,10 +156,14 @@ def synthesize_cube_sharded(
         )
 
     with mesh:
+        t_dev = jax.tree.map(
+            lambda v, s: jax.device_put(v, NamedSharding(mesh, s)),
+            tables, t_specs,
+        )
         roots_d = jax.device_put(
             jnp.asarray(roots), NamedSharding(mesh, spec_r)
         )
-        return jax.jit(_local)(roots_d, key)
+        return jax.jit(_local)(t_dev, roots_d, key)
 
 
 def synthesize_cube_sims_sharded(
@@ -186,11 +176,10 @@ def synthesize_cube_sims_sharded(
     realisations looped over MPI ranks (reference cora/signal/lss.py:394).
     Here sims are a mesh axis: every device runs the tuned SINGLE-sim
     streamed synthesis program for its own subset of realisations, with
-    zero collectives.  This is the right TPU throughput mode: the
-    single-chip ``--sims`` vmap batches realisations *within* one chip and
-    was a measured negative (the ring accumulators scale with fleg × sims,
-    forcing fleg down — BASELINE.md "Batched realisations"); across
-    devices there is no such coupling.
+    zero collectives.  The single-device ``--sims`` vmap batches
+    realisations *within* one device, where the ring accumulators scale
+    with fleg × sims and force fleg down; across devices there is no
+    such coupling.
 
     Per-sim keys are ``fold_in(key, s)`` with the GLOBAL sim index s, so
     the realisations are independent of the device layout: sim s is
@@ -219,7 +208,7 @@ def synthesize_cube_sims_sharded(
 
     from ..healpix.sht import synthesis_scan_correlated
 
-    shard_map = shard_map_compat
+    shard_map = jax.shard_map
     n_sim_dev = mesh.shape[sim_axis]
     if n_sims % n_sim_dev:
         raise ValueError(
@@ -246,7 +235,7 @@ def synthesize_cube_sims_sharded(
         mesh=mesh,
         in_specs=(t_specs, spec_r, P()),
         out_specs=spec_o,
-        check_rep=False,
+        check_vma=False,
     )
     def _local(t_loc, roots_rows, key):
         sidx = jax.lax.axis_index(sim_axis)
@@ -295,13 +284,13 @@ def synthesize_cube_sharded_2d(
     key (RNG is cheap), exactly like the 1-D frequency sharding.
 
     One all-gather of the ring-m matrix G per frequency chunk (over the
-    inner ICI axis) reassembles the rings for the (much lighter) ring FFT
+    inner interconnect axis) reassembles the rings for the (much lighter) ring FFT
     stage, which then runs on a 1/n_band frequency sub-slice per device —
     so the ring stage is also (freq × band)-parallel with no redundancy.
 
     Reference pattern being replaced: MPI ell-shard → all-to-all →
     freq-shard (cora/core/skysim.py:108-130); here the only collective is
-    the G all-gather riding ICI.
+    the G all-gather riding the interconnect.
 
     Parameters
     ----------
@@ -320,7 +309,7 @@ def synthesize_cube_sharded_2d(
     """
     from functools import partial
 
-    shard_map = shard_map_compat
+    shard_map = jax.shard_map
     from ..healpix.sht import (
         _correlated_GeGo_scan,
         _rings_to_grid_parity,
@@ -382,7 +371,7 @@ def synthesize_cube_sharded_2d(
         mesh=mesh,
         in_specs=(t_specs, spec_r, P()),
         out_specs=spec_o,
-        check_rep=False,
+        check_vma=False,
     )
     def _local(t_loc, roots_rows, key):
         nring = 4 * op.nside - 1
@@ -395,7 +384,7 @@ def synthesize_cube_sharded_2d(
             # Legendre stage on this device's rings, all fchunk freqs
             Ge, Go = _correlated_GeGo_scan(op, t_loc, roots_rows, key,
                                            z0, fchunk)
-            # reassemble rings over the inner ICI axis (~the only
+            # reassemble rings over the inner interconnect axis (~the only
             # collective in the program), then keep 1/n_band of the
             # frequencies for the local ring stage
             Ge = jax.lax.all_gather(

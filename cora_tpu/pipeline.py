@@ -183,8 +183,8 @@ class Pipeline:
         """
         products: dict[str, list] = {}
 
-        # compiled task programs survive the process (same default as the
-        # cora-makesky CLI; CORA_TPU_COMPILE_CACHE="" opts out)
+        # compiled task programs survive the process (same cache as the
+        # cora-makesky CLI)
         from .util.compute import enable_compile_cache
 
         enable_compile_cache()

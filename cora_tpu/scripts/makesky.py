@@ -172,19 +172,15 @@ def map_options(f):
 def cli():
     """Generate a map of the low frequency radio sky.
 
-    TPU-native synthesis engine: the realisation runs as a single compiled
-    device program (correlated a_lm draw + native spherical harmonic
-    transform); multi-chip execution shards the frequency axis over a
-    jax.sharding.Mesh.
+    The realisation runs as a single compiled device program (correlated
+    a_lm draw + native spherical harmonic transform); multi-device
+    execution shards the frequency axis over a jax.sharding.Mesh.
     """
-    # compiled programs survive the process (CORA_TPU_COMPILE_CACHE=""
-    # opts out) — repeated CLI invocations skip the XLA compile
-    from ..util.compute import enable_compile_cache, prefetch_backend_init
+    # compiled programs survive the process — repeated CLI invocations
+    # skip the XLA compile
+    from ..util.compute import enable_compile_cache
 
     enable_compile_cache()
-    # start the backend session flush now so model setup overlaps it
-    # (see prefetch_backend_init)
-    prefetch_backend_init()
 
 
 @cli.command()

@@ -5,7 +5,7 @@ the flat-sky angular power spectrum C_l(z1, z2) (reference
 ``angular_powerspectrum_fft``, corr.py:891-986): a DCT-I lookup table over a
 (log kperp × linear kpar) grid combined with Kaiser redshift-space factors.
 
-Architecture notes (TPU-first):
+Architecture notes (accelerator-first):
 
 * Table *construction* is a one-time host computation (numpy float64) — the
   tables are static model state, like weights.
@@ -447,8 +447,9 @@ class RedshiftCorrelation:
             return
 
         # disk tier of the memo: the tables are a pure function of the
-        # key (grid params + P(k) content hash), so they persist per-user
-        # (~/.cache/cora_tpu; CORA_TPU_CACHE="" disables).  At production
+        # key (grid params + P(k) content hash), so they persist in the
+        # table cache (<checkout>/.table_cache, or $CORA_TPU_CACHE;
+        # CORA_TPU_CACHE="" disables).  At production
         # grids the build is ~2 min of host DCTs — the dominant CLI
         # cold-start term once programs come from the compile cache.
         disk_path = self._fft_table_disk_path(key)

@@ -62,7 +62,7 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
 
         On accelerator backends the whole setup pipeline — P(k) grid, DCT
         tables, C_l grid, per-ell covariance roots — runs as jitted device
-        programs (clfast.build_cl_tables_device / cl_roots_device): the
+        programs in float64 (clfast.device_roots): the
         only host↔device traffic is a ~100 kB spline-knot upload, versus
         minutes of host DCT/eigh plus a multi-hundred-MB roots transfer.
         Falls back to the host path (Sky3d.getsky) on CPU, for ps_2d
@@ -89,12 +89,11 @@ class Corr21cm(corr.RedshiftCorrelation, maps.Sky3d):
             return None
         lmax = 3 * self.nside - 1
         try:
-            tables = clfast.build_cl_tables_device(
-                self, nu, window="exact" if self.oversample else "none"
+            roots = clfast.device_roots(
+                self, nu, lmax, window="exact" if self.oversample else "none"
             )
         except ValueError:
             return None
-        roots = clfast.cl_roots_device(tables, lmax)
         parts = [
             m
             for _, m in skysim.mkfullsky_streamed(

@@ -525,14 +525,13 @@ class ZeldovichDynamics(DynamicsBase):
     sph = Property(proptype=bool, default=True)
     mesh_halo = Property(proptype=int, default=4)
     # SPH mass-deposit algorithm: "auto" (scatter single-device, stencil
-    # on a mesh), "scatter", or "stencil" — belt roll-adds, 2.4x on v5e
-    # (tools/bench_stencil.*; poisons on >window displacements rather
-    # than dropping mass)
+    # on a mesh), "scatter", or "stencil" — belt roll-adds (poisons on
+    # >window displacements rather than dropping mass)
     deposit = Property(proptype=str, default="auto")
     # neighbour centre vectors: "table" (precomputed, gathered) or
     # "arith" (computed from pixel ids on the fly — drops the largest
-    # geometry table, 1.64x faster on v5e, f32 weight change ~4e-7;
-    # required headroom for nside>=512 deposits)
+    # geometry table, f32 weight change ~4e-7; memory headroom for
+    # nside>=512 deposits)
     vectors = Property(proptype=str, default="table")
 
     def process(self, initial_field: InitialLSS, biased_field: BiasedLSS) -> BiasedLSS:
@@ -774,12 +773,16 @@ class FingersOfGod(MeshTaskMixin, Task):
                 ).reshape(field.map.shape)
             return smoothed_field
 
+        hi = jax.lax.Precision.HIGHEST
         if isinstance(field, BiasedLSS):
-            smoothed_field.delta[:] = np.asarray(K_d @ jnp.asarray(field.delta))
+            smoothed_field.delta[:] = np.asarray(
+                jnp.matmul(K_d, jnp.asarray(field.delta), precision=hi))
         else:
             n_freq = len(field.freq)
             flat = jnp.asarray(field.map.reshape(n_freq, -1))
-            smoothed_field.map[:] = np.asarray(K_d @ flat).reshape(field.map.shape)
+            smoothed_field.map[:] = np.asarray(
+                jnp.matmul(K_d, flat, precision=hi)
+            ).reshape(field.map.shape)
 
         return smoothed_field
 

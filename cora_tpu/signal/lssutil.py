@@ -115,8 +115,8 @@ def diff2_matrix(x: np.ndarray) -> np.ndarray:
 
     ``diff2_matrix(x) @ f == diff2(f, x, axis=0)`` (same weights; only
     the summation order differs).  Radial operators expressed as
-    matrices apply as one pixel-sharded MXU matmul on a device mesh —
-    the TPU-native form of the reference's pixel-redistributed radial
+    matrices apply as one pixel-sharded matmul on a device mesh — the
+    device form of the reference's pixel-redistributed radial
     derivative loops (cora/signal/lss.py:886).
     """
     idx, w = _fd2_stencil(x)
@@ -209,8 +209,8 @@ def gradient(maps: np.ndarray, x: np.ndarray, grad0: bool = True,
     almE = alm * np.sqrt(ell * (ell + 1.0))
 
     op = _spin.get_spin_sht(nside, lmax, 1)
-    aE = xfer.put(-almE)  # complex H2D through the transfer shim
-    dth, dph = op.synthesis(aE, xfer.zeros_like(aE))
+    aE = xfer.put(-almE)
+    dth, dph = op.synthesis(aE, jnp.zeros_like(aE))
     grad[1] = np.asarray(dth) / x[:, np.newaxis]
     grad[2] = np.asarray(dph) / x[:, np.newaxis]
 
@@ -254,10 +254,7 @@ def pk_flat(
         Σ_m |a^{f}_lm|² = Σ_{m≥0} w_m (|a^{u}_lm|² + |a^{v}_lm|²),
 
     with w_0 = 1, w_{m>0} = 2 (and Re Σ_m a b* likewise for the cross
-    spectrum) — no full-m alm array is ever built.  Measured v5e rows
-    (tools/bench_estimators.py → tools/bench_estimators_v5e.out and the
-    BASELINE.md "LSS estimators" table): ~8.2 s per pk_flat call at
-    nside=256 × 32 shells ≈ 240 ms per analysed map end-to-end.
+    spectrum) — no full-m alm array is ever built.
     """
     if maps2 is not None and maps.shape != maps2.shape:
         raise ValueError("Shape of maps2 is not compatible with maps")
@@ -318,7 +315,7 @@ def corrfunc(
     as a device pipeline with no per-pair loop:
 
     1. one batched analysis of the whole shell stack;
-    2. the full pair cross-spectrum Gram tensor in one MXU einsum over
+    2. the full pair cross-spectrum Gram tensor in one einsum over
        the m-weighted alms, C_l(a,b) = Σ_m w_m Re(a_{alm} a*_{blm});
     3. ξ(a, b, θ) = C @ P̃_l(cos θ) as one matmul against the
        (2l+1)/4π-weighted Legendre matrix;
@@ -353,7 +350,7 @@ def corrfunc(
     Pl_w = legendre_array(lmax, mu) * (
         (2 * np.arange(lmax + 1)[:, np.newaxis] + 1) / (4 * np.pi)
     )
-    ctheta = clxx @ jnp.asarray(Pl_w)                   # ξ(a, b, θ)
+    ctheta = jnp.matmul(clxx, jnp.asarray(Pl_w), precision=jax.lax.Precision.HIGHEST)  # ξ(a, b, θ)
 
     r1 = jnp.asarray(chi[a_i])[:, None]
     r2 = jnp.asarray(chi[b_i])[:, None]

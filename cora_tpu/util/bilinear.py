@@ -1,6 +1,6 @@
 """Clipped 2D bilinear table lookup.
 
-TPU-native replacement for the reference OpenMP kernel
+JAX replacement for the reference OpenMP kernel
 (cora/util/bilinearmap.pyx:14-59): a two-axis gather + lerp, fully
 vectorised/jittable.  Coordinates are in *index* units; they are clipped to
 the valid table range (the reference clips to ``[0, n - 1e-5]``; we

@@ -1,4 +1,4 @@
-"""Natural cubic-spline interpolation, TPU-native.
+"""Natural cubic-spline interpolation on device.
 
 Functional re-design of the reference Cython interpolants
 (cora/util/cubicspline.pyx:38,254,291 in the reference tree).  Semantics are
@@ -12,7 +12,7 @@ matched exactly:
   (cubicspline.pyx:254-288), ``SinhSpline`` in arcsinh-scaled space
   (cubicspline.pyx:291-342).
 
-The split is TPU-idiomatic: coefficient *construction* happens on the host in
+The split is accelerator-idiomatic: coefficient *construction* happens on the host in
 float64 numpy (these are static tables, like model weights), while
 *evaluation* is pure ``jnp`` — jit/vmap/grad-compatible, with the interval
 search as a vectorised ``searchsorted`` instead of the reference's per-point

@@ -4,7 +4,7 @@ Replaces the reference ``cora/util/nputil.py:51-125``.  The key routine is
 ``matrix_root_manynull``: a square root for covariance matrices with a huge
 dynamic range of eigenvalues, where Cholesky fails due to roundoff.
 
-The TPU-native variant ``batch_matrix_root`` avoids data-dependent Python
+The device variant ``batch_matrix_root`` avoids data-dependent Python
 control flow entirely (SURVEY.md §7 risk #2): it computes a batched ``eigh``,
 clips tiny/negative eigenvalues to zero, and forms ``V sqrt(Λ)`` — giving the
 same map statistics as the reference's cholesky-with-eigh-fallback while

@@ -1,5 +1,7 @@
 """CLI smoke tests: cora-makesky subcommands and the HDF5 map schema."""
 
+from pathlib import Path
+
 import numpy as np
 import h5py
 import pytest
@@ -200,8 +202,9 @@ def test_api_parity_audit():
 
 
 def test_enable_compile_cache(tmp_path, monkeypatch):
-    """enable_compile_cache populates the persistent XLA cache (explicit
-    dir, env opt-out, env dir) so repeat CLI invocations skip compiles."""
+    """enable_compile_cache populates the persistent XLA cache in the
+    directory JAX_COMPILATION_CACHE_DIR names, so repeat CLI invocations
+    skip compiles."""
     import jax
     import jax.numpy as jnp
 
@@ -209,23 +212,42 @@ def test_enable_compile_cache(tmp_path, monkeypatch):
 
     d = tmp_path / "xla"
     prev = jax.config.jax_compilation_cache_dir
+    prev_min = jax.config.jax_persistent_cache_min_compile_time_secs
     try:
-        assert enable_compile_cache(str(d), min_compile_secs=0.0) == str(d)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(d))
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+        assert enable_compile_cache() == str(d)
         jax.jit(lambda x: jnp.sin(x) * 2.0 + x)(jnp.arange(1000.0)).block_until_ready()
         assert any(d.iterdir()), "no cache entries written"
-
-        monkeypatch.setenv("CORA_TPU_COMPILE_CACHE", "")
-        assert enable_compile_cache() is None
-
-        d2 = tmp_path / "xla2"
-        monkeypatch.setenv("CORA_TPU_COMPILE_CACHE", str(d2))
-        assert enable_compile_cache() == str(d2)
     finally:
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", prev_min)
         jax.config.update("jax_compilation_cache_dir", prev)
-        try:
-            from jax._src import compilation_cache as _cc
+        from jax._src import compilation_cache as _cc
 
-            _cc.reset_cache()
-        except Exception:
-            pass
+        _cc.reset_cache()
+
+
+@pytest.mark.parametrize("env", [None, "set"])
+def test_compile_cache_placement(tmp_path, monkeypatch, env):
+    """The compile cache goes where JAX_COMPILATION_CACHE_DIR says, else to
+    <checkout>/.jax_cache; no other directory is ever configured."""
+    import jax
+
+    from cora_tpu.util.compute import compile_cache_dir, enable_compile_cache
+
+    root = Path(__file__).resolve().parent.parent
+    want = str(tmp_path / "cc") if env else str(root / ".jax_cache")
+    if env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        assert compile_cache_dir() == want
+        assert enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+        from jax._src import compilation_cache as _cc
+
+        _cc.reset_cache()

@@ -204,8 +204,7 @@ def test_za_density_sph_sharded_matches_single_device():
 def test_za_density_sph_sharded_arith_geometry_args():
     """Arith-vector sharded deposit with caller-built host geometry.
 
-    This is the nside>=512 configuration (BASELINE.md "Deposit at
-    nside=512"): geometry built on host WITHOUT the nn_vec table and
+    This is the nside>=512 configuration: geometry built on host WITHOUT the nn_vec table and
     shipped through the program's jit arguments; neighbour vectors
     computed arithmetically in-graph.  Must equal the single-device
     arith deposit.

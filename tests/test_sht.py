@@ -834,7 +834,7 @@ def test_fused_conv_matches_twostep(ring_mode, cap_bands, nside):
 
 def test_unrolled_lam_scan_matches_single_row():
     """_lam_scan_rows (R ℓ-rows per scan step, rescale checks deferred to
-    every 4th row — tools/scan_binder_512.out) == the one-row-per-step
+    every 4th row) == the one-row-per-step
     scan with per-row rescale.  In f64 the deferred-rescale emission
     differences are < 2^-250 and XLA FMA-fusion choices dominate, so the
     agreement bound is machine-rounding class."""
@@ -868,3 +868,36 @@ def test_unrolled_lam_scan_matches_single_row():
         jax.clear_caches()
 
     assert np.abs(m_unroll - m_ref).max() < 1e-11 * np.abs(m_ref).max()
+
+
+def test_scan_checkpoints_exact_beyond_f64_seed_range():
+    """Host checkpoint rows stay exact where the λ_mm seeds fall below the
+    f64 range (log2 λ_mm < -1022 near the poles at lmax ≳ 2000).
+
+    Unscaled f64 seeds there flush to zero or to imprecise subnormals
+    although their columns grow back to O(1) within the band; the scaled
+    host recurrence must match the scaled f64 device recurrence on every
+    entry the device scan would take from the checkpoint (|λ| > 2^-20)."""
+    import jax
+
+    nside, lmax, lc = 8, 2047, 64
+    op = sht.SHT(nside, lmax, legendre_mode="scan", l_chunk=lc,
+                 scan_ckpt=True)
+    assert op._log2_lam_mm.min() < -1100  # the case under test
+    ck = op._build_scan_checkpoints()  # [nchunk, 2, nh, L] f32
+
+    t = op.tables(double=True)
+    L = lmax + 1
+    l_step = sht._scaled_lam_step(t["lam_mm"], t["lam_k0"], t["z_half"],
+                                  jnp.arange(L))
+    lam0 = jnp.zeros((op.nhalf, L))
+    _, rows = jax.lax.scan(l_step, (lam0, lam0, lam0, jnp.asarray(0)),
+                           (t["rec_a"], t["rec_b"]))
+    rows = np.asarray(rows)  # [L, nh, L] true λ rows
+    for c in range(1, ck.shape[0]):
+        for i, l in enumerate((c * lc - 2, c * lc - 1)):
+            ref = rows[l]
+            use = np.abs(ref) > 2.0**-20
+            assert use.any()
+            err = np.abs(ck[c, i] - ref)[use] / np.abs(ref)[use]
+            assert err.max() < 1e-6, (c, i, err.max())

@@ -351,13 +351,13 @@ def test_getsky_clarray_method_clfast():
 def test_device_cl_setup():
     """Device-side table/roots build equals the host f64 path (clfast).
 
-    Validates the zero-transfer setup pipeline (VERDICT r3 items 1/5):
+    Validates the zero-transfer setup pipeline (clfast.device_roots):
     build_cl_tables_device (spline-knot upload → P grid → DCT-I via rfft →
     K̃/β) and cl_roots_device (cl_grid → batched eigh root) against
-    build_cl_tables(dtype=f64) + cl_grid_np + host eigh.  f32 contract:
-    tables ~1e-6 relative-to-max, C_l grid < 1e-5, and the roots must
-    reconstruct the host covariance to < 1e-5 (only R Rᵀ = C matters —
-    column mixing between near-degenerate eigenvectors is free).
+    build_cl_tables(dtype=f64) + cl_grid_np + host eigh.  Contract:
+    tables ~1e-6 relative-to-max, C_l grid < 1e-5, and the float32 roots
+    must reconstruct the host covariance to < 1e-5 (only R Rᵀ = C matters
+    — column mixing between near-degenerate eigenvectors is free).
     """
     from cora_tpu.signal.corr21cm import Corr21cm
     from cora_tpu.signal import clfast
@@ -373,26 +373,35 @@ def test_device_cl_setup():
     th = clfast.build_cl_tables(m, freqs, dtype=np.float64)
     cla_h = clfast.cl_grid_np(th, lmax)
 
-    td = clfast.build_cl_tables_device(m, freqs)
-    for nm in ("dd", "dv", "vv", "beta_dd", "a"):
-        a = np.asarray(td[nm], np.float64)
-        b = np.asarray(th[nm], np.float64)
-        assert np.abs(a - b).max() <= 5e-6 * np.abs(b).max(), nm
-    # β for dv/vv is exactly zero (μ² = 0 at kpar = 0); the host path
-    # carries only f64 trapezoid noise there
-    assert np.asarray(td["beta_dv"]).max() == 0.0
-    assert np.abs(th["beta_dv"]).max() <= 1e-12 * np.abs(th["beta_dd"]).max()
+    # the device builder is float64-only and refuses to run without x64
+    with jax.enable_x64(False), pytest.raises(ValueError, match="enable_x64"):
+        clfast.build_cl_tables_device(m, freqs)
 
-    cla_d = np.asarray(clfast.cl_grid(td, lmax), np.float64)
-    assert np.abs(cla_d - cla_h).max() <= 1e-5 * np.abs(cla_h).max()
+    with jax.enable_x64(True):
+        td = clfast.build_cl_tables_device(m, freqs)
+        for nm in ("dd", "dv", "vv", "beta_dd", "a"):
+            assert td[nm].dtype == jnp.float64, nm
+            a = np.asarray(td[nm], np.float64)
+            b = np.asarray(th[nm], np.float64)
+            assert np.abs(a - b).max() <= 5e-6 * np.abs(b).max(), nm
+        # β for dv/vv is exactly zero (μ² = 0 at kpar = 0); the host path
+        # carries only f64 trapezoid noise there
+        assert np.asarray(td["beta_dv"]).max() == 0.0
+        assert (np.abs(th["beta_dv"]).max()
+                <= 1e-12 * np.abs(th["beta_dd"]).max())
 
-    # the y-combined factorized grid (the production roots path) must
-    # match too, including across its ℓ-block boundaries
-    cla_c = np.asarray(clfast.cl_grid_combined(td, lmax, l_chunk=32),
-                       np.float64)
-    assert np.abs(cla_c - cla_h).max() <= 1e-5 * np.abs(cla_h).max()
+        cla_d = np.asarray(clfast.cl_grid(td, lmax), np.float64)
+        assert np.abs(cla_d - cla_h).max() <= 1e-5 * np.abs(cla_h).max()
 
-    roots = np.asarray(clfast.cl_roots_device(td, lmax), np.float64)
+        # the y-combined factorized grid (the production roots path) must
+        # match too, including across its ℓ-block boundaries
+        cla_c = np.asarray(clfast.cl_grid_combined(td, lmax, l_chunk=32),
+                           np.float64)
+        assert np.abs(cla_c - cla_h).max() <= 1e-5 * np.abs(cla_h).max()
+
+    roots = clfast.device_roots(m, freqs, lmax)
+    assert roots.dtype == jnp.float32
+    roots = np.asarray(roots, np.float64)
     rec = np.einsum("lij,lkj->lik", roots, roots)
     assert np.abs(rec - cla_h).max() <= 1e-5 * np.abs(cla_h).max()
 

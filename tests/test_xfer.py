@@ -1,4 +1,4 @@
-"""Transfer-shim tests: complex-as-pairs and chunked puts must be exact."""
+"""Transfer helpers: put/put_tree/get round-trip arrays exactly."""
 
 import numpy as np
 import jax.numpy as jnp

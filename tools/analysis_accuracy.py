@@ -11,8 +11,7 @@ and the full lmax = 3*nside - 1, for
   equations (one synthesis + one adjoint per iteration, same cost per
   iteration as Jacobi).
 
-Input alm are drawn from the tpu_validate spectrum C_l = (l/10)^-2.5 so
-the headline matches the hardware metric.  Also reports the error
+Input alm are drawn from the spectrum C_l = (l/10)^-2.5.  Also reports the error
 restricted to l <= 2*nside (``band`` columns) to separate the corner-mode
 (l ~ 2.5*nside+) behaviour from the quadrature-accurate band.
 

@@ -41,9 +41,9 @@ sys.path.insert(0, REPO)
 
 
 def install_stubs():
-    from cora_tpu import constants as tpu_constants
-    from cora_tpu.util import bilinear as tpu_bilinear
-    from cora_tpu.util import interpolation as tpu_interp
+    from cora_tpu import constants as port_constants
+    from cora_tpu.util import bilinear as port_bilinear
+    from cora_tpu.util import interpolation as port_interp
 
     class _Inert(types.ModuleType):
         """Import-time placeholder: any attribute is a no-op callable."""
@@ -55,24 +55,24 @@ def install_stubs():
 
     caput = types.ModuleType("caput")
     caput_astro = types.ModuleType("caput.astro")
-    caput_astro.constants = tpu_constants
+    caput_astro.constants = port_constants
     caput.astro = caput_astro
     caput.mpiarray = _Inert("caput.mpiarray")
     sys.modules["caput"] = caput
     sys.modules["caput.astro"] = caput_astro
-    sys.modules["caput.astro.constants"] = tpu_constants
+    sys.modules["caput.astro.constants"] = port_constants
     sys.modules["caput.mpiarray"] = caput.mpiarray
     sys.modules["healpy"] = _Inert("healpy")
 
     cs = types.ModuleType("cora.util.cubicspline")
-    cs.Interpolater = tpu_interp.Interpolater
-    cs.LogInterpolater = tpu_interp.LogInterpolater
-    cs.SinhInterpolater = tpu_interp.SinhInterpolater
-    cs.InterpolationException = tpu_interp.InterpolationException
+    cs.Interpolater = port_interp.Interpolater
+    cs.LogInterpolater = port_interp.LogInterpolater
+    cs.SinhInterpolater = port_interp.SinhInterpolater
+    cs.InterpolationException = port_interp.InterpolationException
     sys.modules["cora.util.cubicspline"] = cs
 
     bl = types.ModuleType("cora.util.bilinearmap")
-    bl.interp = tpu_bilinear.interp
+    bl.interp = port_bilinear.interp
     sys.modules["cora.util.bilinearmap"] = bl
 
 
@@ -161,13 +161,13 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    tpu_vals = run_cora_tpu()
+    port_vals = run_cora_tpu()
     ref_vals = run_reference(args.reference_path)
 
     rows = []
     for key, pin in UPSTREAM_PINS.items():
         ref = ref_vals[key]
-        ours = tpu_vals[key]
+        ours = port_vals[key]
         rows.append(
             {
                 "quantity": key,
@@ -175,7 +175,7 @@ def main():
                 "reference_algorithm_now": ref,
                 "cora_tpu": ours,
                 "ref_vs_pin": ref / pin - 1.0,
-                "tpu_vs_ref": ours / ref - 1.0,
+                "port_vs_ref": ours / ref - 1.0,
             }
         )
 
@@ -184,12 +184,12 @@ def main():
         return
 
     print(f"{'quantity':26s} {'upstream pin':>14s} {'ref algo now':>14s} "
-          f"{'cora_tpu':>14s} {'ref/pin-1':>10s} {'tpu/ref-1':>10s}")
+          f"{'cora_tpu':>14s} {'ref/pin-1':>10s} {'port/ref-1':>10s}")
     for r in rows:
         print(
             f"{r['quantity']:26s} {r['upstream_pin']:14.6e} "
             f"{r['reference_algorithm_now']:14.6e} {r['cora_tpu']:14.6e} "
-            f"{r['ref_vs_pin']:10.2e} {r['tpu_vs_ref']:10.2e}"
+            f"{r['ref_vs_pin']:10.2e} {r['port_vs_ref']:10.2e}"
         )
 
 
